@@ -26,7 +26,7 @@ def main(argv=None):
                     help="stop after N frames (0 = all)")
     ap.add_argument("-b", "--backend", default="inline",
                     choices=["inline", "plan", "jax"],
-                    help="reconstruction backend (jax = TPU stage B)")
+                    help="reconstruction backend (jax = device stage B)")
     ap.add_argument("-l", "--layer", type=int, default=63,
                     help="maximum quality (SHVC) layer id to decode; "
                          "output is the highest decoded layer")
@@ -34,8 +34,12 @@ def main(argv=None):
                     help="maximum temporal layer id to decode")
     args = ap.parse_args(argv)
 
+    from . import compile_cache
     from .decoder.core import Decoder
     from .io import open_input
+
+    if args.backend == "jax":
+        compile_cache.enable()
 
     # container probe: raw Annex-B, MP4 (hvcC), MPEG-TS
     data = open_input(args.input)

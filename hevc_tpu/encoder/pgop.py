@@ -6,7 +6,7 @@ decodable CONCURRENTLY once the anchors exist.  This is the
 hierarchical-B shape that gives real frame-level parallelism: the
 reference's frame threads exploit exactly this independence, gating
 each frame's MC on its producers' progress (pthread_frame.c:395/484/
-570/592); on a TPU mesh the n B frames map onto a ("frame",) axis with
+570/592); on a device mesh the n B frames map onto a ("frame",) axis with
 the anchor reconstructions replicated (see __graft_entry__.py
 dryrun_multichip frame axis and tests/test_pgop.py).
 """

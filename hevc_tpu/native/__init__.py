@@ -140,9 +140,9 @@ def stagea_threads() -> int:
     """Worker threads for the parallel stage-A paths (WPP rows / tiles).
 
     HEVC_TPU_STAGEA_THREADS overrides; default = CPU count - 1 (one
-    core stays free for the pack/dispatch worker), min 1.  Measured on
-    a 2-core host, 2 WPP threads run ~1.3x SLOWER than 1 (the 2-CTU-lag
-    spin-wait burns the sibling core), so small hosts get 1."""
+    core stays free for the pack/dispatch worker), min 1.  The WPP
+    workers spin-wait on a 2-CTU lag, so a thread without a core of its
+    own slows the others down."""
     v = os.environ.get("HEVC_TPU_STAGEA_THREADS")
     if v is not None:
         return max(1, int(v))

@@ -1,7 +1,7 @@
 """Bit-exact NumPy reference ops for HEVC reconstruction (stage B).
 
-These are the scalar oracles for the Pallas/JAX kernels in this package:
-every TPU kernel must match these functions exactly (integer arithmetic,
+These are the scalar oracles for the JAX kernels in this package:
+every device kernel must match these functions exactly (integer arithmetic,
 H.265 clauses 8.4 intra prediction, 8.6 scaling/transform).
 
 Capability parity with the reference's hevcdsp_template.c /

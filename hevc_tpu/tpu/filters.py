@@ -11,7 +11,7 @@ upsampled to pixel resolution; band offsets via a per-CTB 32-entry LUT.
 
 Replaces the reference's hevc_deblock.asm / hevc_sao_sse.c kernel family
 (reference: libavcodec/hevcdsp_template.c:310-496, :3377-3536) with a
-TPU-first design.
+data-parallel design.
 """
 from __future__ import annotations
 
@@ -143,8 +143,13 @@ def _luma_pass(y, qp4, bs4, beta_off, tc_off, bd):
     return y
 
 
-def _chroma_pass(c, qp4, bs4, tc_off, qp_off, bd, sub):
-    """One directional chroma pass (4:2:0: edges every 8 chroma cols)."""
+def _chroma_pass(c, qp4, bs4, tc_off, qp_off, bd, sub, sub_x=None):
+    """One directional chroma pass: edges every 8 chroma cols.
+
+    sub: chroma subsampling along the filtered axis; sub_x: across it
+    (default sub).  4:2:0 maps QpC through Table 8-10, other formats
+    take Min(qPi, 51) (8.7.2.5.5)."""
+    sub_x = sub if sub_x is None else sub_x
     ch, cw = c.shape
     # edges at x = 8(j+1); the filter touches p1..q1 = cols
     # edge-2 .. edge+1, so the last edge is the largest 8k <= cw-2
@@ -161,13 +166,16 @@ def _chroma_pass(c, qp4, bs4, tc_off, qp_off, bd, sub):
     win = cpad[:, 6:6 + 8 * n_e].reshape(s, 4, n_e, 8).transpose(0, 2, 1, 3)
     seg = win[..., :4]
     # bs/qp at luma coords: edge x = 8*sub*(j+1), row y = 4*sub*m
-    bs = bs4[:: sub, :][: s, :][:, 2 * sub:: 2 * sub][:, :n_e]
-    qp_p = qp4[:: sub, :][: s, :][:, 2 * sub - 1:: 2 * sub][:, :n_e]
-    qp_q = qp4[:: sub, :][: s, :][:, 2 * sub:: 2 * sub][:, :n_e]
-    qpi = ((qp_p + qp_q + 1) >> 1) + qp_off
-    qpc = jnp.asarray(_QPC_LUT)[jnp.clip(qpi, 0, 57)]
+    bs = bs4[:: sub_x, :][: s, :][:, 2 * sub:: 2 * sub][:, :n_e]
+    qp_p = qp4[:: sub_x, :][: s, :][:, 2 * sub - 1:: 2 * sub][:, :n_e]
+    qp_q = qp4[:: sub_x, :][: s, :][:, 2 * sub:: 2 * sub][:, :n_e]
+    qpi = jnp.clip(((qp_p + qp_q + 1) >> 1) + qp_off, 0, 57)
+    if sub == 2 and sub_x == 2:
+        qpc = jnp.asarray(_QPC_LUT)[qpi]
+    else:
+        qpc = jnp.minimum(qpi, 51)
     if getattr(tc_off, "ndim", 0) == 2:
-        tc_off = tc_off[:: sub, :][: s, :][:, 2 * sub:: 2 * sub][:, :n_e]
+        tc_off = tc_off[:: sub_x, :][: s, :][:, 2 * sub:: 2 * sub][:, :n_e]
     tc = jnp.asarray(_TC)[jnp.clip(qpc + 2 + tc_off, 0, 53)] << (bd - 8)
     outs = _chroma_filter_segments(seg, tc, maxv)
     outs = jnp.where((bs == 2)[..., None, None], outs, seg)
@@ -190,8 +198,8 @@ def deblock_jax(y, cb, cr, qp4, bs_v4, bs_h4, beta_off, tc_off,
     y_in, cb_in, cr_in = y, cb, cr
     # vertical edges
     y = _luma_pass(y, qp4, bs_v4, beta_off, tc_off, bd)
-    cb = _chroma_pass(cb, qp4, bs_v4, tc_off, cb_qp_off, bd, sub_w)
-    cr = _chroma_pass(cr, qp4, bs_v4, tc_off, cr_qp_off, bd, sub_w)
+    cb = _chroma_pass(cb, qp4, bs_v4, tc_off, cb_qp_off, bd, sub_w, sub_h)
+    cr = _chroma_pass(cr, qp4, bs_v4, tc_off, cr_qp_off, bd, sub_w, sub_h)
     if has_nf:
         y = jnp.where(nf_y, y_in, y)
         cb = jnp.where(nf_c, cb_in, cb)
@@ -200,8 +208,10 @@ def deblock_jax(y, cb, cr, qp4, bs_v4, bs_h4, beta_off, tc_off,
     bo_t = beta_off.T if getattr(beta_off, "ndim", 0) == 2 else beta_off
     to_t = tc_off.T if getattr(tc_off, "ndim", 0) == 2 else tc_off
     y = _luma_pass(y.T, qp4.T, bs_h4.T, bo_t, to_t, bd).T
-    cb = _chroma_pass(cb.T, qp4.T, bs_h4.T, to_t, cb_qp_off, bd, sub_h).T
-    cr = _chroma_pass(cr.T, qp4.T, bs_h4.T, to_t, cr_qp_off, bd, sub_h).T
+    cb = _chroma_pass(cb.T, qp4.T, bs_h4.T, to_t, cb_qp_off, bd, sub_h,
+                      sub_w).T
+    cr = _chroma_pass(cr.T, qp4.T, bs_h4.T, to_t, cr_qp_off, bd, sub_h,
+                      sub_w).T
     if has_nf:
         y = jnp.where(nf_y, y_in, y)
         cb = jnp.where(nf_c, cb_in, cb)
@@ -216,31 +226,36 @@ def deblock_jax(y, cb, cr, qp4, bs_v4, bs_h4, beta_off, tc_off,
 _EO = ((0, -1, 0, 1), (-1, 0, 1, 0), (-1, -1, 1, 1), (1, -1, -1, 1))
 
 
-def _upsample(m, cs, h, w):
-    """Per-CTB map [cty, ctx, ...] → per-pixel [h, w, ...]."""
-    return jnp.repeat(jnp.repeat(m, cs, axis=0), cs, axis=1)[:h, :w]
+def _upsample(m, cs, h, w, cs_h=None):
+    """Per-CTB map [cty, ctx, ...] → per-pixel [h, w, ...] (CTBs cs_h x
+    cs samples; cs_h defaults to cs)."""
+    cs_h = cs if cs_h is None else cs_h
+    return jnp.repeat(jnp.repeat(m, cs_h, axis=0), cs, axis=1)[:h, :w]
 
 
-@partial(jax.jit, static_argnames=("ctb_log2", "bd"))
+@partial(jax.jit, static_argnames=("ctb_log2", "bd", "ctb_log2_h"))
 def sao_plane_jax(plane, type_map, band_pos, offs4, eo_class, ctb_log2,
-                  bd, edge_flags=None, nf=None):
+                  bd, edge_flags=None, nf=None, ctb_log2_h=None):
     """SAO for one plane — gather-free (masked sums over upsampled maps).
 
     plane: int32 [h, w]; type_map: int32 [cty, ctx] (0 off / 1 band /
     2 edge); band_pos: int32 [cty, ctx]; offs4: int32 [cty, ctx, 4]
     (band offsets k=0..3, or signed edge offsets for categories 1..4);
-    eo_class: int32 [cty, ctx]; ctb_log2 in plane samples.
+    eo_class: int32 [cty, ctx]; ctb_log2 (ctb_log2_h, default the same)
+    = log2 of the CTB width (height) in plane samples — they differ for
+    4:2:2 chroma.
 
     edge_flags (optional): per-CTB int32 of ops.boundaries.SAO_* bits —
     restricted slice/tile borders whose edge-SAO pixels stay unfiltered
     (reference: hevcdsp_template.c:438 sao_edge_restore_1)."""
     h, w = plane.shape
-    cs = 1 << ctb_log2
+    lg_h = ctb_log2 if ctb_log2_h is None else ctb_log2_h
+    cs, cs_h = 1 << ctb_log2, 1 << lg_h
     maxv = (1 << bd) - 1
-    t = _upsample(type_map, cs, h, w)
-    pos = _upsample(band_pos, cs, h, w)
-    offs = _upsample(offs4, cs, h, w)          # [h, w, 4]
-    cls = _upsample(eo_class, cs, h, w)
+    t = _upsample(type_map, cs, h, w, cs_h)
+    pos = _upsample(band_pos, cs, h, w, cs_h)
+    offs = _upsample(offs4, cs, h, w, cs_h)          # [h, w, 4]
+    cls = _upsample(eo_class, cs, h, w, cs_h)
     # ---- band: offset where band(v) matches pos+k ----
     band = plane >> (bd - 5)
     band_off = jnp.zeros_like(plane)
@@ -257,16 +272,16 @@ def sao_plane_jax(plane, type_map, band_pos, offs4, eo_class, ctb_log2,
         return jax.lax.dynamic_slice(pad, (1 + dy, 1 + dx), (h, w))
 
     if edge_flags is not None:
-        fl = _upsample(edge_flags, cs, h, w)
-        xm, ym = xx % cs, yy % cs
+        fl = _upsample(edge_flags, cs, h, w, cs_h)
+        xm, ym = xx % cs, yy % cs_h
         cond_l = xm == 0
         cond_r = (xm == cs - 1) | (xx == w - 1)
         cond_t = ym == 0
-        cond_b = (ym == cs - 1) | (yy == h - 1)
+        cond_b = (ym == cs_h - 1) | (yy == h - 1)
         at_l = xx < cs
-        at_t = yy < cs
+        at_t = yy < cs_h
         at_r = (xx >> ctb_log2) == ((w - 1) >> ctb_log2)
-        at_b = (yy >> ctb_log2) == ((h - 1) >> ctb_log2)
+        at_b = (yy >> lg_h) == ((h - 1) >> lg_h)
         bit = [(fl & (1 << i)) != 0 for i in range(8)]
         ve0, ve1, he0, he1, d0, d1, d2, d3 = bit
 

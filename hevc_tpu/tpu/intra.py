@@ -1,7 +1,7 @@
 """Device-side intra prediction + reconstruction (JAX/XLA), bit-exact.
 
 Stage-B replacement for the reference's hevcpred_template.c (intra_pred
-:30, planar :360, dc :389, angular :420) — re-designed TPU-first: the
+:30, planar :360, dc :389, angular :420) — re-designed for the accelerator: the
 frame's predicted blocks are replayed as a `lax.scan` over a packed
 record stream against a single padded canvas holding all three planes,
 with a `lax.switch` over transform-size classes.  All arithmetic is

@@ -2,7 +2,7 @@
 
 Stage-B replacement for the reference's qpel/epel SIMD kernel grid
 (reference: libavcodec/hevcdsp_template.c:2359-3375, x86/hevc_mc.asm) —
-TPU-first: all PBs of one (plane-kind, w, h) group across a frame are
+Re-designed for the accelerator: all PBs of one (plane-kind, w, h) group across a frame are
 vmapped; interpolation runs as a unified two-stage separable filter
 (full-pel positions use a unit tap, which reproduces the spec's shift
 algebra exactly), reads come from replication-padded reference stacks

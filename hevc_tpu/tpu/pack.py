@@ -1,6 +1,6 @@
 """Stage-A → stage-B packing: BlockRecords → wavefront-chunked tensors.
 
-Host-side preparation of the symbol tensors the TPU reconstruction
+Host-side preparation of the symbol tensors the device reconstruction
 consumes: a single padded int32 canvas holding Y/Cb/Cr regions, per-
 size-class residual level batches, and per-record prediction metadata
 grouped into conflict-free wavefront chunks.
@@ -10,7 +10,7 @@ current chunk until a record's reference band (the L-shaped left column +
 top row it predicts from) touches a block already written by the chunk —
 then a new chunk starts.  Records inside one chunk are therefore
 independent: the device vmaps them and commits each class batch with one
-scatter.  This is the TPU analogue of the reference's WPP wavefront
+scatter.  This is the device analogue of the reference's WPP wavefront
 (reference: hevcdec.c:2961 hls_decode_entry_wpp) applied to the
 reconstruction stage.
 

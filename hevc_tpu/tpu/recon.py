@@ -1,7 +1,7 @@
 """Stage-B orchestrator: packed frame → reconstructed planes on device.
 
 Pipeline (all inside one jit):
- 1. batched dequant + inverse transform per TU size class (MXU matmuls)
+ 1. batched dequant + inverse transform per TU size class (int32 matmuls)
  2. sequential intra predict/add replay over the canvas (lax.scan)
 
 The result is bit-exact with the NumPy stage-B oracle
@@ -69,17 +69,13 @@ def _residuals(levels, rmeta, bit_depth, scale_bank=None):
     return tuple(out)
 
 
-@partial(jax.jit, static_argnames=("bit_depth", "n_chunks", "mc_shapes",
-                                   "mc_meta", "resid_ns", "use_pallas"))
+@partial(jax.jit, static_argnames=("bit_depth", "n_chunks", "mc_shapes"))
 def reconstruct_device(canvas, scal, avail, levels, rmeta,
                        mc_fields, refs_l, refs_c, resid_fields,
-                       bit_depth, n_chunks, mc_shapes=(),
-                       mc_ft=(), mc_meta=(), resid_ft=(), resid_ns=(),
-                       use_pallas=False, scale_bank=None):
+                       bit_depth, n_chunks, mc_shapes=(), scale_bank=None):
     resids = _residuals(levels, rmeta, bit_depth, scale_bank)
     canvas = _inter_phases(canvas, refs_l, refs_c, resids, bit_depth,
-                           mc_fields, resid_fields, mc_shapes,
-                           mc_ft, mc_meta, resid_ft, resid_ns, use_pallas)
+                           mc_fields, resid_fields, mc_shapes)
     return reconstruct_wavefront(canvas, scal, avail, resids, bit_depth,
                                  n_chunks)
 
@@ -95,86 +91,19 @@ def _mc_args(pf: PackedFrame):
             resid_fields, mc_shapes)
 
 
-def use_pallas_default():
-    """Pallas inter kernels on real TPUs; XLA path elsewhere (CPU tests
-    use the XLA path as the reference; kernels are cross-checked in
-    interpret mode by tests/test_mc_pallas.py)."""
-    import os
-    env = os.environ.get("HEVC_TPU_PALLAS")
-    if env is not None:
-        return env not in ("0", "false", "")
-    # jax.default_backend() still says "tpu" when tests force the default
-    # *device* to CPU (conftest.py), so honour jax_default_device first.
-    dev = jax.config.jax_default_device
-    if dev is not None:
-        return dev.platform == "tpu"
-    return jax.default_backend() == "tpu"
-
-
-def _pallas_args(pf: PackedFrame):
-    """Host-side prep for the Pallas inter path: transposed/aligned
-    field slabs (+ static block counts)."""
-    from . import mc_pallas as MP
-    pg = MP.prepare_mc_fields(
-        tuple((ic, bi, wp, w, h, f) for ic, bi, w, h, wp, f
-              in pf.mc_groups))
-    mc_ft = tuple(ft.arr for *_m, ft in pg)
-    mc_meta = tuple((ic, bi, wp, w, h, ft.n)
-                    for ic, bi, wp, w, h, ft in pg)
-    rf = MP.prepare_resid_fields(pf.resid_groups)
-    resid_ft = tuple(ft.arr for ft in rf)
-    resid_ns = tuple(ft.n for ft in rf)
-    return mc_ft, mc_meta, resid_ft, resid_ns
-
-
-def _pallas_kwargs(pf: PackedFrame):
-    """kwargs bundle for decode_frame_device's Pallas inter path.
-
-    Covers uni/bi and explicit-WP groups (the Pallas kernel weights
-    in-register; tests/test_mc_pallas.py cross-checks vs XLA)."""
-    use_pallas = use_pallas_default() and bool(pf.mc_groups or
-                                              any(g.shape[0]
-                                                  for g in pf.resid_groups))
-    if not use_pallas:
-        return dict(use_pallas=False)
-    mc_ft, mc_meta, resid_ft, resid_ns = _pallas_args(pf)
-    return dict(mc_ft=mc_ft, mc_meta=mc_meta, resid_ft=resid_ft,
-                resid_ns=resid_ns, use_pallas=True)
-
-
 def _inter_phases(canvas, refs_l, refs_c, resids, bit_depth,
-                  mc_fields, resid_fields, mc_shapes,
-                  mc_ft, mc_meta, resid_ft, resid_ns, use_pallas):
-    """MC + inter-residual phases, Pallas or XLA flavour."""
+                  mc_fields, resid_fields, mc_shapes):
+    """MC + inter-residual phases."""
     from .mc import mc_phase, resid_phase
-    if not use_pallas:
-        groups = tuple((ic, bi, w, h, wp, f)
-                       for (ic, bi, w, h, wp), f in zip(mc_shapes,
-                                                        mc_fields))
-        canvas = mc_phase(canvas, refs_l, refs_c, groups, bit_depth)
-        return resid_phase(canvas, resid_fields, resids, bit_depth)
-    from . import mc_pallas as MP
-    ch, cw = canvas.shape
-    canvas = MP.pad_canvas(canvas)
-    groups = tuple((ic, bi, wp, w, h, MP._FT(arr, n))
-                   for (ic, bi, wp, w, h, n), arr in zip(mc_meta, mc_ft))
-    if any(n for *_m, n in mc_meta):
-        canvas = MP.mc_phase_pallas(canvas, MP.pad_refs(refs_l),
-                                    MP.pad_refs(refs_c), groups, bit_depth)
-    if any(resid_ns):
-        fts = tuple(MP._FT(a, n) for a, n in zip(resid_ft, resid_ns))
-        canvas = MP.resid_phase_pallas(canvas, fts, resids, bit_depth)
-    return canvas[:ch, :cw]
+    groups = tuple((ic, bi, w, h, wp, f)
+                   for (ic, bi, w, h, wp), f in zip(mc_shapes, mc_fields))
+    canvas = mc_phase(canvas, refs_l, refs_c, groups, bit_depth)
+    return resid_phase(canvas, resid_fields, resids, bit_depth)
 
 
 def run_packed(pf: PackedFrame):
     """Execute a packed frame; returns the reconstructed canvas (np)."""
     mc_fields, refs_l, refs_c, resid_fields, mc_shapes = _mc_args(pf)
-    use_pallas = use_pallas_default() and bool(pf.mc_groups or
-                                              any(g.shape[0]
-                                                  for g in pf.resid_groups))
-    mc_ft, mc_meta, resid_ft, resid_ns = (
-        _pallas_args(pf) if use_pallas else ((), (), (), ()))
     canvas = reconstruct_device(
         jnp.asarray(pf.canvas),
         tuple(jnp.asarray(v) for v in pf.scal),
@@ -183,7 +112,6 @@ def run_packed(pf: PackedFrame):
         tuple(jnp.asarray(v) for v in pf.rmeta),
         mc_fields, refs_l, refs_c, resid_fields,
         pf.bit_depth, pf.n_chunks, mc_shapes,
-        mc_ft, mc_meta, resid_ft, resid_ns, use_pallas,
         tuple(jnp.asarray(b) for b in pf.scale_bank))
     return np.asarray(canvas)
 
@@ -203,17 +131,14 @@ def reconstruct_plan_jax(pic, plan) -> None:
 
 @partial(jax.jit, static_argnames=("bit_depth", "n_chunks", "regions",
                                    "do_deblock", "do_sao", "ctb_log2",
-                                   "sub_w", "sub_h", "mc_shapes",
-                                   "mc_meta", "resid_ns", "use_pallas"))
+                                   "sub_w", "sub_h", "mc_shapes"))
 def decode_frame_device(canvas, scal, avail, levels, rmeta, qp4, bs_v, bs_h,
                         beta_off, tc_off, cb_qp_off, cr_qp_off,
                         sao_type, sao_band_pos, sao_offs4, sao_eo_class,
                         bit_depth, n_chunks, regions, do_deblock, do_sao,
                         ctb_log2, sub_w, sub_h,
                         mc_fields=(), refs_l=None, refs_c=None,
-                        resid_fields=(), mc_shapes=(),
-                        mc_ft=(), mc_meta=(), resid_ft=(), resid_ns=(),
-                        use_pallas=False, scale_bank=None):
+                        resid_fields=(), mc_shapes=(), scale_bank=None):
     """Stage B end-to-end: returns (y, cb, cr) int32 planes.
 
     regions: static tuple ((oy, ox, h, w) per plane); sao_* are
@@ -222,8 +147,7 @@ def decode_frame_device(canvas, scal, avail, levels, rmeta, qp4, bs_v, bs_h,
 
     resids = _residuals(levels, rmeta, bit_depth, scale_bank)
     canvas = _inter_phases(canvas, refs_l, refs_c, resids, bit_depth,
-                           mc_fields, resid_fields, mc_shapes,
-                           mc_ft, mc_meta, resid_ft, resid_ns, use_pallas)
+                           mc_fields, resid_fields, mc_shapes)
     out = reconstruct_wavefront(canvas, scal, avail, resids, bit_depth,
                                 n_chunks)
     planes = []
@@ -237,12 +161,15 @@ def decode_frame_device(canvas, scal, avail, levels, rmeta, qp4, bs_v, bs_h,
     if do_sao:
         outp = []
         for plane, p in enumerate((y, cb, cr)):
-            lg = ctb_log2 - (0 if plane == 0 else
-                             (sub_w.bit_length() - 1))
+            sw, sh = (1, 1) if plane == 0 else (sub_w, sub_h)
             outp.append(sao_plane_jax(p, sao_type[plane],
                                       sao_band_pos[plane],
                                       sao_offs4[plane],
-                                      sao_eo_class[plane], lg, bit_depth))
+                                      sao_eo_class[plane],
+                                      ctb_log2 - (sw.bit_length() - 1),
+                                      bit_depth,
+                                      ctb_log2_h=ctb_log2
+                                      - (sh.bit_length() - 1)))
         y, cb, cr = outp
     return y, cb, cr
 
@@ -308,8 +235,7 @@ def finish_frame_jax(pic, plan) -> None:
         pf.bit_depth, pf.n_chunks, regions, do_deblock, do_sao,
         sps.log2_ctb_size, sps.sub_w, sps.sub_h,
         *_mc_args(pf)[:4], mc_shapes=_mc_args(pf)[4],
-        scale_bank=tuple(jnp.asarray(b) for b in pf.scale_bank),
-        **_pallas_kwargs(pf))
+        scale_bank=tuple(jnp.asarray(b) for b in pf.scale_bank))
     for plane, arr in enumerate((y, cb, cr)):
         pic.planes[plane][:] = np.asarray(arr).astype(
             pic.planes[plane].dtype)

@@ -1,10 +1,10 @@
 """Tile-sharded stage-B filtering: deblock + SAO over a device mesh.
 
-The TPU-native analogue of the reference's tile parallelism + seam pass
+The device-mesh analogue of the reference's tile parallelism + seam pass
 (reference: hevcdec.c:3144-3194 per-tile jobs, :3292-3328 tiles_filters
 cross-tile deblock/SAO; SURVEY.md §2.2).  The frame is sharded in column
 bands over a ("tile",) mesh axis; the cross-tile dependency becomes an
-explicit halo exchange (jax.lax.ppermute over ICI):
+explicit halo exchange (jax.lax.ppermute between devices):
 
 - deblock: a 16-luma-pixel halo of the unfiltered plane (and the 4x4 QP /
   boundary-strength maps) — a vertical-edge filter segment reads 4 and
@@ -27,10 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .filters import _luma_pass, _chroma_pass, _upsample, _EO
 
@@ -121,17 +118,17 @@ def _filters_in_shard(y, cb, cr, qp4, bs_v, bs_h, beta_off, tc_off,
                         beta_off, tc_off, bit_depth)[:, hl:-hl]
         ecb = _chroma_pass(parts["cb"], parts["qp"], parts["bv"],
                            tc_off, cb_qp_off, bit_depth,
-                           sub_w)[:, hc:-hc]
+                           sub_w, sub_h)[:, hc:-hc]
         ecr = _chroma_pass(parts["cr"], parts["qp"], parts["bv"],
                            tc_off, cr_qp_off, bit_depth,
-                           sub_w)[:, hc:-hc]
+                           sub_w, sub_h)[:, hc:-hc]
         # horizontal edges: column-independent → local transpose pass
         y = _luma_pass(ey.T, qp4.T, bs_h.T, beta_off, tc_off,
                        bit_depth).T
         cb = _chroma_pass(ecb.T, qp4.T, bs_h.T, tc_off, cb_qp_off,
-                          bit_depth, sub_h).T
+                          bit_depth, sub_h, sub_w).T
         cr = _chroma_pass(ecr.T, qp4.T, bs_h.T, tc_off, cr_qp_off,
-                          bit_depth, sub_h).T
+                          bit_depth, sub_h, sub_w).T
     if do_sao:
         idx = jax.lax.axis_index(axis)
         outs = []
@@ -182,10 +179,7 @@ def filter_frame_sharded(mesh: Mesh, y, cb, cr, qp4, bs_v, bs_h,
               in_specs=(spec,) * 6 + ((spec,) * 3,) * 2
               + ((P(None, axis, None),) * 3,) + ((spec,) * 3,),
               out_specs=(spec, spec, spec))
-    try:
-        fn = shard_map(run, check_rep=False, **kw)
-    except TypeError:  # newer jax: check_rep was renamed/removed
-        fn = shard_map(run, **kw)
+    fn = shard_map(run, **kw)
     args = tuple(jax.device_put(a, col) for a in
                  (y, cb, cr, qp4, bs_v, bs_h))
     sao_args = (tuple(jax.device_put(a, col) for a in sao_type),
@@ -303,10 +297,7 @@ def _gop_step(mesh, axis, n, R, bd, n_chunks, regions, mc_shapes,
     c2 = P(None, axis)
     out_specs = (c2, c2, c2, c2, c2, c2)
     kw = dict(mesh=mesh, in_specs=in_specs, out_specs=out_specs)
-    try:
-        fn = shard_map(body, check_rep=False, **kw)
-    except TypeError:
-        fn = shard_map(body, **kw)
+    fn = shard_map(body, **kw)
     fn = jax.jit(fn)
     _step_cache[key] = fn
     return fn
@@ -391,7 +382,7 @@ def decode_stream_banded(mesh: Mesh, frame_iter, axis: str = "tile"):
     """STREAMING banded decode: consume band.iter_gop_banded's
     (bundle, halo) pairs as stage A produces them, re-sharding the
     device DPB whenever the per-frame MV bound widens the halo
-    (VERDICT r4 #8 — frames decode before the GOP's stage A
+    (frames decode before the GOP's stage A
     completes, and a growing MV range degrades to a re-shard instead
     of an assert).  Returns [(y, cb, cr)] like decode_gop_banded."""
     n = mesh.shape[axis]

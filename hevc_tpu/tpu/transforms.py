@@ -1,10 +1,11 @@
-"""Batched dequant + inverse transform on TPU (JAX/XLA), bit-exact.
+"""Batched dequant + inverse transform on device (JAX/XLA), bit-exact.
 
 Stage-B kernel family replacing the reference's per-TU scalar IDCT path
 (reference: libavcodec/hevcdsp_template.c:62-308, hevc_cabac.c:1695
-ff_hevc_hls_transform) with a TPU-first design: all TUs of one size
+ff_hevc_hls_transform) with a batched design: all TUs of one size
 class across a frame are batched into [N, S, S] tensors and transformed
-with two matmul passes that XLA tiles onto the MXU.
+with two int32 matmul passes (exact integer arithmetic; no float
+dot_general, so no TF32 rounding on the GPU).
 
 Exact integer semantics (H.265 8.6.3/8.6.4) without int64:
 - dequant splits the 19-bit scale into (hi << shift) + lo so every

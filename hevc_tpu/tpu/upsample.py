@@ -1,9 +1,9 @@
 """Device-side SHVC inter-layer upsampling (JAX/XLA), bit-exact.
 
-TPU-first re-design of the reference's SIMD upsamplers (reference:
+Vectorized re-design of the reference's SIMD upsamplers (reference:
 libavcodec/x86/hevc_il_pred_sse.c): both separable passes become
 per-tap shifted multiply-accumulates with per-output-coordinate phase
-taps gathered once from 16-entry tables — fully vectorized VPU work,
+taps gathered once from 16-entry tables — fully vectorized elementwise work,
 no per-sample gathers (source columns/rows are selected by a
 precomputed index vector, a single gather per tap)."""
 from __future__ import annotations

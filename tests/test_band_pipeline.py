@@ -82,8 +82,8 @@ def test_lowb_gop():
 def test_1080p_class_compile_once():
     """1080p-class tile stream on the full 8-device mesh: bit-exact AND
     the steady-state P frames reuse ONE compiled step (the shape
-    bucketing in band.unify_bands + sharded._step_cache; VERDICT r3
-    flagged a fresh shard_map compile per frame)."""
+    bucketing in band.unify_bands + sharded._step_cache, not a fresh
+    shard_map compile per frame)."""
     from hevc_tpu.tpu import sharded
     n_bands = 8
     kw = dict(width=2048, height=1088, qp=34, gop="ipp",
@@ -106,7 +106,7 @@ def test_1080p_class_compile_once():
 
 
 def test_streaming_banded_halo_widen(monkeypatch):
-    """Streaming banded decode (VERDICT r4 #8): frames flow from a
+    """Streaming banded decode: frames flow from a
     stage-A worker thread through iter_gop_banded, the halo derives
     PER FRAME, and a mid-GOP widening re-shards the device DPB via
     ppermute — output stays bit-exact vs the sequential decode."""

@@ -65,8 +65,7 @@ def test_bench_packed_decode_frame_device(bench_stream):
     bundles = bench.ensure_packed(bench.ensure_stream(
         bench.B720_TAG, 1280, 720, 30, 3, wpp=False))
     import jax.numpy as jnp
-    from hevc_tpu.tpu.recon import decode_frame_device, _mc_args, \
-        _pallas_kwargs
+    from hevc_tpu.tpu.recon import decode_frame_device, _mc_args
     for bi, b in enumerate(bundles):
         pf = b["pf"]
         log2_ctb, sub_w, sub_h = b["sps"]
@@ -92,7 +91,7 @@ def test_bench_packed_decode_frame_device(bench_stream):
             do_sao=b["do_sao"], ctb_log2=log2_ctb,
             sub_w=sub_w, sub_h=sub_h, mc_shapes=mc_shapes,
             mc_fields=mc_fields, refs_l=refs_l, refs_c=refs_c,
-            resid_fields=resid_fields, **_pallas_kwargs(pf))
+            resid_fields=resid_fields)
         for p, out in enumerate(planes):
             assert (np.asarray(out) == b["ref"][p].astype(np.int32)).all(), \
                 f"bundle {bi} plane {p} device pipeline mismatch"

@@ -1,4 +1,4 @@
-"""Randomized encoder-config fuzz matrix vs the oracle (VERDICT r4 #1/#4).
+"""Randomized encoder-config fuzz matrix vs the oracle.
 
 The repo's fixed tests exercise hand-picked configs; this matrix samples
 the SYNTAX PRODUCT SPACE (CTB/CU/TU policies x chroma format x bit depth

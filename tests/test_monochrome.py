@@ -1,4 +1,4 @@
-"""4:0:0 monochrome decode (VERDICT r3 item 7).
+"""4:0:0 monochrome decode.
 
 Chroma syntax is absent for ChromaArrayType == 0 (7.3.8.5/7.3.8.8);
 frames carry a single luma plane and a single-hash picture-hash SEI.

@@ -1,6 +1,6 @@
 """Multi-slice pictures: per-slice filter parameters + boundary gating.
 
-Covers VERDICT r3 item 6: independent multi-slice emission (CTB-row and
+Covers independent multi-slice emission (CTB-row and
 whole-tile-run splits), per-slice deblock overrides/disable, per-slice
 SAO toggle, slice_loop_filter_across_slices gating, restricted tile
 boundaries (pps_loop_filter_across_tiles=0), and dependent segments

@@ -3,7 +3,7 @@
 A parallel-B GOP's n B pictures (encoder/pgop.py) decode concurrently
 over a ("frame",) mesh, device k reconstructing frame k+1 end to end
 with the anchor reference windows replicated — bit-exact vs the
-sequential decode (the TPU-native form of the reference's frame
+sequential decode (the device-mesh form of the reference's frame
 threads, pthread_frame.c:395/484)."""
 import numpy as np
 import pytest
@@ -60,7 +60,7 @@ def test_pgop_stream_all_backends():
 
 
 def test_frame_parallel_normal_ra_stream():
-    """The GENERAL frame axis (VERDICT r4 #3): a NORMAL hierarchical-B
+    """The GENERAL frame axis: a NORMAL hierarchical-B
     RA stream from the standard encoder decodes with its dependency
     batches level-parallel over the mesh, bit-exact vs sequential, and
     with at least one batch spanning >= 2 frames."""

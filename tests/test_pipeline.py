@@ -44,6 +44,14 @@ CONFIGS = {
                  pcm_loop_filter_disabled=True, deblocking=True), 3),
     "main10_422": (dict(width=64, height=48, qp=30, bit_depth=10,
                         chroma_format_idc=2, gop="ipp"), 3),
+    # chroma deblock off the 4:2:0 grid: 4:2:2 rows sample the BS/QP
+    # maps at full luma rate, and 4:2:2/4:4:4 QpC = Min(qPi, 51)
+    "main10_422_filters": (dict(width=64, height=48, qp=36, bit_depth=10,
+                                chroma_format_idc=2, gop="ipp",
+                                deblocking=True, sao=True), 3),
+    "fmt444_filters": (dict(width=64, height=48, qp=40,
+                            chroma_format_idc=3, gop="ipp",
+                            deblocking=True, sao=True), 3),
     "scaling": (dict(width=64, height=48, qp=30, scaling_lists="custom",
                      gop="ipp"), 3),
     "amp_qp": (dict(width=64, height=64, qp=30, gop="ra", amp="all",

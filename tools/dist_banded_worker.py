@@ -4,28 +4,21 @@ Launched N times (one per "host"); each process owns
 `local_devices` virtual CPU devices, joins a jax.distributed global
 mesh, and runs tpu/sharded.decode_gop_banded — the SAME sharded
 stage-B pipeline as single-host — over the process-spanning ("tile",)
-mesh.  Each process asserts bit-exactness of its ADDRESSABLE output
+mesh, on a self-encoded 3-frame IPP stream with one tile column per
+device.  Each process asserts bit-exactness of its ADDRESSABLE output
 shards against the sequential decode (SURVEY §4 item (e); the
 multi-host analogue of the reference's thread-config MD5 equality).
+Used by tests/test_distributed.py.
 
 argv: port process_id num_processes local_devices
-      [n_frames w h stream_path reps]
-With stream_path, decode that stream (its tile count must equal the
-global device count) instead of self-encoding; reps > 1 re-decodes the
-GOP and reports the best steady-state time (compile excluded) — the
-basis of bench.py's multihost_scaling_efficiency.
-Prints 'worker <pid> OK decode_s=<t>' on success.
+Prints 'worker <pid> OK' on success.
 """
 import os
 import sys
 
 port, pid, nproc, ldev = (sys.argv[1], int(sys.argv[2]),
                           int(sys.argv[3]), int(sys.argv[4]))
-n_frames = int(sys.argv[5]) if len(sys.argv) > 5 else 3
-W = int(sys.argv[6]) if len(sys.argv) > 6 else 0
-H = int(sys.argv[7]) if len(sys.argv) > 7 else 96
-STREAM = sys.argv[8] if len(sys.argv) > 8 else ""
-REPS = int(sys.argv[9]) if len(sys.argv) > 9 else 1
+N_FRAMES, H = 3, 96
 
 os.environ["XLA_FLAGS"] = \
     f"--xla_force_host_platform_device_count={ldev}"
@@ -43,38 +36,25 @@ from hevc_tpu.encoder.generate import synth_frame  # noqa: E402
 from hevc_tpu.tpu.band import prepare_gop_banded  # noqa: E402
 from hevc_tpu.tpu.sharded import decode_gop_banded  # noqa: E402
 
-devs = jax.devices("cpu")
+devs = jax.devices()
 n_bands = nproc * ldev
 assert len(devs) == n_bands, (len(devs), n_bands)
 mesh = Mesh(np.asarray(devs), ("tile",))
 
-if STREAM:
-    stream = open(STREAM, "rb").read()
-else:
-    W = W or 32 * n_bands
-    cfg = EncoderConfig(width=W, height=H, qp=30, log2_ctb_size=5,
-                        log2_cu_size=5, gop="ipp", tiles=(n_bands, 1),
-                        deblocking=True, sao=True, seed=2,
-                        search_range=3)
-    enc = IntraEncoder(cfg)
-    stream = bytearray()
-    for t in range(n_frames):
-        stream += enc.encode_frame(synth_frame("noise", W, H, t,
-                                               seed=4))
-    stream = bytes(stream)
+W = 32 * n_bands
+cfg = EncoderConfig(width=W, height=H, qp=30, log2_ctb_size=5,
+                    log2_cu_size=5, gop="ipp", tiles=(n_bands, 1),
+                    deblocking=True, sao=True, seed=2, search_range=3)
+enc = IntraEncoder(cfg)
+stream = b"".join(enc.encode_frame(synth_frame("noise", W, H, t, seed=4))
+                  for t in range(N_FRAMES))
 
 frames, ref_planes, (hl, hc) = prepare_gop_banded(stream, n_bands)
 assert any(f["spec"]["mc_shapes"] for f in frames), "no inter content"
 
-import time  # noqa: E402
-decode_s = None
-for _rep in range(max(1, REPS)):
-    t0 = time.time()
-    outs = decode_gop_banded(mesh, frames, halo_l=hl, halo_c=hc,
-                             globalize=True)
-    jax.block_until_ready([o for fr in outs for o in fr])
-    dt = time.time() - t0
-    decode_s = dt if decode_s is None else min(decode_s, dt)
+outs = decode_gop_banded(mesh, frames, halo_l=hl, halo_c=hc,
+                         globalize=True)
+jax.block_until_ready([o for fr in outs for o in fr])
 
 for i, (got3, want3) in enumerate(zip(outs, ref_planes)):
     for p, (got, want) in enumerate(zip(got3, want3)):
@@ -83,4 +63,4 @@ for i, (got3, want3) in enumerate(zip(outs, ref_planes)):
             local = np.asarray(sh.data)
             assert (local == want[idx]).all(), \
                 f"frame {i} plane {p} shard {sh.index} mismatch"
-print(f"worker {pid} OK decode_s={decode_s:.3f}")
+print(f"worker {pid} OK")
